@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""TPU-resident ML ingest walkthrough.
+"""Device-resident ML ingest walkthrough.
 
 The decode path the reference cannot offer (its libFLAC decode lands PCM on
 the host, ``converter.py:181-182``): compressed FLAC bytes upload to the
 accelerator, frames decode in parallel ON DEVICE (ops/device_decode), and
-the pixel tensor stays in HBM for the model -- including windowed reads
+the pixel tensor stays in device memory for the model -- including windowed reads
 through the FRTP decode index, so an input pipeline can stream row blocks
 of a huge raster without ever materializing it.
 
-Run: python examples/tpu_ingest_example.py
+Run: python examples/device_ingest_example.py
 (uses whatever jax backend is active; on CPU it demonstrates the same API.)
 """
 

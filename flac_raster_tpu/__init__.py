@@ -1,7 +1,7 @@
-"""flac-raster-tpu: TPU-native lossless geospatial raster codec framework.
+"""flac-raster-tpu: JAX device-native lossless geospatial raster codec framework.
 
 Rebuild of yharby/flac-raster's capabilities (GeoTIFF <-> FLAC conversion,
-spatial tiling, HTTP range streaming) as a self-contained JAX/XLA/Pallas
+spatial tiling, HTTP range streaming) as a self-contained JAX/XLA
 framework: the FLAC codec, GeoTIFF I/O, metadata container, and spatial
 index are all first-party (the reference delegates these to libFLAC, GDAL,
 and mutagen -- SURVEY.md §2.2).

@@ -190,7 +190,7 @@ def _show_flac_info(path: Path) -> None:
     print(f"  Total Samples: {si.total_samples}")
     print(f"  File Size: {path.stat().st_size / 1e6:.2f} MB")
     if si.md5 == b"\x00" * 16:
-        # the spec reserves all-zero for "MD5 unset"; our TPU-egress path
+        # the spec reserves all-zero for "MD5 unset"; our device-egress path
         # (converter.encode_array_device) writes it -- see docs/FORMATS.md
         print("  MD5: unset (device-egress file; frame CRCs still verify)")
     else:
@@ -426,7 +426,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="flac-raster",
         description="Convert GeoTIFF raster data to/from FLAC format with "
-                    "spatial streaming support (TPU-native framework).",
+                    "spatial streaming support (JAX device-native framework).",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -503,6 +503,9 @@ def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     args = build_parser().parse_args(_normalize_argv(list(argv)))
+    from .backend import enable_compile_cache
+
+    enable_compile_cache()
     return args.func(args)
 
 

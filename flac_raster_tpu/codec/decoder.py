@@ -66,6 +66,10 @@ class DecodedStream:
     streaminfo: StreamInfo
     comments: dict[str, list[str]]
     vendor: str = ""
+    # which decoder produced ``samples``: "host" (this module), "device"
+    # (codec/device_decoder), "device-mesh" (parallel/decode_mesh) or
+    # "host-fallback" (a device call that had to take the host decoder)
+    engine: str = "host"
 
     @property
     def sample_rate(self) -> int:

@@ -10,7 +10,7 @@ translation of libFLAC code).
 Unlike libFLAC's sequential bitwriter, emission is a token stream: every
 field becomes a (value, bit-length) token, the whole stream is packed in one
 vectorized scatter (ops/bitpack.py), and frame CRCs are patched in one
-batched pass (ops/crc.py).  This is the same emission model the TPU device
+batched pass (ops/crc.py).  This is the same emission model the device
 path uses, so host and device share all format logic.
 
 Contract fixes vs the reference (SURVEY.md §2.3):

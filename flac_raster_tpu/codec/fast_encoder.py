@@ -92,10 +92,12 @@ def _default_planner(blocksize: int, bps: int, cfg: "EncoderConfig"):
         return planner
     import jax
 
+    from ..backend import backend_config
+
     devs = jax.local_devices()  # per-host planning under jax.distributed
     if (
         len(devs) <= 1
-        and jax.default_backend() == "cpu"
+        and backend_config().planner == "native"
         and os.environ.get("FRTPU_NATIVE_PLAN", "1") != "0"
     ):
         # CPU-only host: the C++ integer search (ops/native_planner) beats

@@ -4,7 +4,7 @@ Drop-in semantic equivalents of the rasterio types the reference leans on
 (``rasterio.transform.Affine``, ``rasterio.windows.Window``, ``src.bounds``
 -- reference ``converter.py:73-85``, ``spatial_encoder.py:123-131``), but
 self-contained: this framework owns its raster I/O stack (GDAL is not part
-of the TPU deployment image).
+of the deployment image).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 FLAC is an MSB-first bit-packed format.  libFLAC (the reference's codec,
 SURVEY.md §2.2) writes it with a sequential bitwriter; that is the wrong shape
-for a TPU, so the core primitive here is a *token packer*:
+for a data-parallel accelerator, so the core primitive here is a *token packer*:
 
     pack_tokens(values, lengths) -> bytes
 

@@ -8,7 +8,7 @@ FLAC uses:
     footer.
 
 The reference implementation delegates this to libFLAC (see SURVEY.md §2.2);
-here it is a first-class component.  Because the TPU-native encoder produces
+here it is a first-class component.  Because the device-parallel encoder produces
 *all frames of a stream at once*, the interesting primitive is not
 ``crc16(one_buffer)`` but ``crc16_rows(matrix)``: one CRC per row of a
 left-zero-padded byte matrix.  Both CRCs have init value 0, so leading zero

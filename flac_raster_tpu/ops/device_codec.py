@@ -1,6 +1,6 @@
 """Device-side FLAC block planner: batched predictor + Rice search in JAX.
 
-This is the TPU compute core of the encoder.  It replaces the per-block
+This is the device compute core of the encoder.  It replaces the per-block
 Python search of ``codec/encoder.py:_plan_subframe`` (which itself replaces
 libFLAC's sequential ``process()`` loop -- reference ``converter.py:153``,
 SURVEY.md §2.2) with one jit-compiled program over a **batch of blocks**:
@@ -9,7 +9,7 @@ SURVEY.md §2.2) with one jit-compiled program over a **batch of blocks**:
 
 Every FLAC encode decision is made for all B blocks at once:
 
-  * fixed predictors 0-4  -- finite differences, pure VPU elementwise
+  * fixed predictors 0-4  -- finite differences, pure elementwise
   * LPC order<=8          -- tukey(0.5)-windowed autocorrelation (9 batched
                              reductions), batched Levinson-Durbin (static
                              8-step recursion), error-feedback coefficient
@@ -70,9 +70,10 @@ KMAX = 20              # largest Rice parameter searched on device
 # partition escaped otherwise; shared by all three planners so the encoders
 # stay byte-identical).  32 -- rather than FLAC's implicit 2^q freedom --
 # lets the device decoder group a guaranteed _GROUP (10) codes per 13-word
-# window read (ops/device_decode) and shrinks the pack kernel's compare window
-# (ops/pallas_pack).  Size cost: only partitions whose max quotient would
-# exceed the budget pick a larger k; measured parity vs libFLAC -5 holds.
+# window read (ops/device_decode) and lets every token span at most two
+# words in the emit scatter.  Size cost: only partitions whose max quotient
+# would exceed the budget pick a larger k; measured parity vs libFLAC -5
+# holds.
 MAX_RICE_TOKEN_BITS = 32
 _QCLAMP = 1 << 17      # clamp on per-sample quotient inside cost sums
 _BIG = np.int32(1 << 29)
@@ -84,28 +85,6 @@ KIND_LPC = 3
 
 MAX_ORDER_SLOTS = 12   # warmup/coeff array width in the plan (levels 7-8)
 PART_SLOTS = 64        # ks array width (max partition order 6 -> 64 parts)
-
-# test hook: run the Pallas rice-cost kernel in interpreter mode on CPU
-FORCE_PALLAS_INTERPRET = False
-# escape hatch: force the pure-XLA paths even on TPU (set by bench.py when a
-# Mosaic kernel fails to compile on the target stack, with jax.clear_caches()
-# to drop any traces that already chose the Pallas path)
-DISABLE_PALLAS = False
-
-
-def _use_pallas() -> bool:
-    """Trace-time backend switch for the Pallas rice-cost kernel."""
-    if FORCE_PALLAS_INTERPRET:
-        return True
-    if DISABLE_PALLAS:
-        return False
-    try:
-        import jax as _jax
-
-        return _jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
-
 
 def _tukey_window(n: int, alpha: float = 0.5) -> np.ndarray:
     """Host-precomputed tukey window (float32 constant on device)."""
@@ -189,44 +168,20 @@ def _rice_search(z, order, blocksize, max_po, idx):
     z = jnp.where(mask, z, jnp.uint32(0))
 
     zr = z.reshape(B, parts, base)
-    if not _use_pallas():
-        zmax = zr.max(axis=-1)  # (B, parts) uint32 (unsigned: z may exceed 2^31)
+    zmax = zr.max(axis=-1)  # (B, parts) uint32 (unsigned: z may exceed 2^31)
     # Per-partition sample counts (partition 0 loses the warmup samples).
     part_iota = jax.lax.broadcasted_iota(jnp.int32, (1, parts), 1)
     counts_l = jnp.where(part_iota == 0, base - order_col, base)  # (B|1, parts)
 
     ks = np.arange(KMAX + 1, dtype=np.int32)
-    # cost[b, k, p] = sum over partition of min(z >> k, QCLAMP) + cnt*(k+1)
-    if _use_pallas():
-        # one-pass Pallas kernel: block loaded into VMEM once, the cost
-        # table reconstructed from 6 reductions via the 5-bit-quotient
-        # recurrence.  Its sums equal the clamped jnp ones below ONLY on
-        # entries the vmask keeps -- exactness of the reconstruction needs
-        # the 32-bit token cap (see pallas_kernels module docstring).
-        import os
-
-        from .pallas_kernels import TOKEN_CAP, rice_cost_sums, rice_cost_sums_hp
-
-        assert MAX_RICE_TOKEN_BITS == TOKEN_CAP
-        # hp: transposed half-partition layout fills all 128 lanes during
-        # the per-element quotient/field chain (trace-time env switch)
-        # hp measured 2x on the whole planner on v5e (r5: plan_blocks full
-        # 7.31 -> 3.89 ms per (2048, 4096) chunk, docs/hw_logs/r5)
-        _cost_fn = (
-            rice_cost_sums_hp
-            if os.environ.get("FRTPU_COST", "hp") == "hp" and (blocksize >> max_po) % 2 == 0
-            else rice_cost_sums
-        )
-        cost, zmax = _cost_fn(
-            z, parts=parts, interpret=FORCE_PALLAS_INTERPRET
-        )
-    else:
-        sums = []
-        for k in range(KMAX + 1):
-            # clamp in uint32 first: values can exceed int32 range
-            q = jnp.minimum(zr >> jnp.uint32(k), jnp.uint32(_QCLAMP)).astype(jnp.int32)
-            sums.append(q.sum(axis=-1))
-        cost = jnp.stack(sums, axis=1)  # (B, K+1, parts)
+    # cost[b, k, p] = sum over partition of min(z >> k, QCLAMP) + cnt*(k+1);
+    # the KMAX+1 shifted sums all read the one (B, parts, base) tensor
+    sums = []
+    for k in range(KMAX + 1):
+        # clamp in uint32 first: values can exceed int32 range
+        q = jnp.minimum(zr >> jnp.uint32(k), jnp.uint32(_QCLAMP)).astype(jnp.int32)
+        sums.append(q.sum(axis=-1))
+    cost = jnp.stack(sums, axis=1)  # (B, K+1, parts)
     cost = cost + counts_l[:, None, :] * (jnp.asarray(ks)[None, :, None] + 1)
     # validity: every token in the partition fits MAX_RICE_TOKEN_BITS (uint32
     # math -- zmax can exceed int32 range for wide LPC residuals)
@@ -519,8 +474,8 @@ def plan_blocks(
     # apodization).  The search is row-independent integer math (exact
     # sums -- no float re-association), so stacking candidates along the
     # batch axis is decision- and byte-identical to searching each
-    # separately, but runs ONE Pallas cost kernel + ONE XLA level tree
-    # instead of 5 + len(apodizations) of each. -------------------------------
+    # separately, but runs ONE cost reduction + ONE level tree instead of
+    # 5 + len(apodizations) of each. ------------------------------------------
     n_lpc = len(lpc_float)
     zall = jnp.concatenate(
         [_zigzag_u32(r) for r in fixed_rs]

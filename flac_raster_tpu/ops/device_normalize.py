@@ -1,6 +1,6 @@
-"""Device-side inverse normalization: decoded PCM -> raster, staying in HBM.
+"""Device-side inverse normalization: decoded PCM -> raster, staying on device.
 
-Completes the TPU-ingest path end to end: ``codec/device_decoder`` /
+Completes the device-ingest path end to end: ``codec/device_decoder`` /
 ``parallel/decode_mesh`` leave int32 PCM on device, and this module applies
 the inverse of ``ops/normalization`` THERE, so the consumer receives the
 actual raster (original dtype, band-major geometry) without the decoded
@@ -20,7 +20,7 @@ Exactness contract (mirrors ``converter._denormalize_samples``):
     level in rare ties.  Minmax is the lossy mode by construction -- for
     bit-parity with the host, use the host path;
   * float64_bits (split-channel float64) needs 64-bit integer folds the
-    TPU path doesn't carry -- raises NotImplementedError; callers fall
+    device path (x64 off) doesn't carry -- raises NotImplementedError; callers fall
     back to the host inverse.
 """
 
@@ -41,8 +41,8 @@ __all__ = ["denormalize_device", "device_denorm_supported"]
 
 def device_denorm_supported(params: "NormalizationParams | None") -> bool:
     """True when denormalize_device handles this file class (everything but
-    the two float64 output paths, which need 64-bit math the TPU path
-    doesn't carry)."""
+    the two float64 output paths, which need 64-bit math the device path
+    (x64 off) doesn't carry)."""
     if params is None:
         return True
     if params.mode == MODE_FLOAT64_BITS:

@@ -1,7 +1,7 @@
 """Native host block planner: jitted float analysis + C++ integer search.
 
-The XLA planner (ops/device_codec.plan_blocks) is the right shape for a TPU
--- one fused program, everything batched -- but on a plain CPU host the
+The XLA planner (ops/device_codec.plan_blocks) is the right shape for an
+accelerator -- one fused program, everything batched -- but on a CPU host the
 exact Rice search dominates it (~95% of plan time measured on the dev box)
 and XLA:CPU runs it at scalar speed.  This planner splits the work:
 
@@ -15,7 +15,8 @@ and XLA:CPU runs it at scalar speed.  This planner splits the work:
 Output is therefore byte-identical to the XLA planner's on CPU
 (tests/test_native_planner.py asserts it stream-for-stream), at many times
 the throughput.  Used by codec/fast_encoder._default_planner on
-single-device CPU hosts; FRTPU_NATIVE_PLAN=0 disables.
+single-device hosts whose backend.py entry names the native planner (the
+CPU); FRTPU_NATIVE_PLAN=0 disables.
 
 Reference context: this is the libFLAC-C-core role (SURVEY.md §2.2,
 reference ``converter.py`` delegating to pyflac/libFLAC) for hosts without

@@ -7,7 +7,7 @@ store as 32-bps FLAC and previously planned only on the host
 (ops/host_planner, int64 numpy).  This module is the device lane: the same
 search space and the same exact bit accounting as the host planner, so the
 two produce byte-identical plans on the CPU test mesh, but all arithmetic
-is int32/uint32 (JAX x64 stays off, TPU-native):
+is int32/uint32 (JAX x64 stays off on device):
 
   * 64-bit intermediates (order-4 fixed residuals reach ~2^36; LPC
     accumulators ~2^49) are (hi int32, lo uint32) LIMB PAIRS with explicit
@@ -217,8 +217,8 @@ def lpc_qc_f32(x_f32, *, order: int, precision: int, wname: str):
     SHARED VERBATIM by plan_blocks_wide (inlined in its trace) and the host
     wide planner (called standalone on CPU): both execute the same ops, so
     XLA:CPU produces bit-identical (qcoeffs, shift) either way and the
-    integer remainder of both planners agrees exactly.  On real TPUs the
-    fused executable may round the f32 reductions differently from the
+    integer remainder of both planners agrees exactly.  On an accelerator
+    the fused executable may round the f32 reductions differently from the
     host's standalone call -- both plans stay valid FLAC of the same size
     class, the same divergence contract as the narrow lane (CLAUDE.md
     architecture invariants).

@@ -1,6 +1,6 @@
 from .decode_mesh import decode_flac_batch_mesh
 from .mesh import Mesh, NamedSharding, P, tile_mesh, tile_sharding
-from .tile_engine import frame_bytes_from_subframe_bits, make_tile_step
+from .tile_engine import encode_flac_batch_mesh, make_tile_emit_step
 
 __all__ = [
     "Mesh",
@@ -8,7 +8,7 @@ __all__ = [
     "P",
     "tile_mesh",
     "tile_sharding",
-    "make_tile_step",
-    "frame_bytes_from_subframe_bits",
+    "make_tile_emit_step",
+    "encode_flac_batch_mesh",
     "decode_flac_batch_mesh",
 ]

@@ -323,5 +323,7 @@ def decode_flac_batch_mesh(
         for blk in m["blocks"]:
             if blk.block_type == BLOCK_VORBIS_COMMENT:
                 vendor, comments = parse_vorbis_comments(blk.data)
-        results.append(DecodedStream(samples, m["si"], comments, vendor))
+        results.append(
+            DecodedStream(samples, m["si"], comments, vendor, engine="device-mesh")
+        )
     return results

@@ -4,15 +4,16 @@ The reference has no parallelism at all (SURVEY.md §2.4); the rebuild's
 scaling unit is the *tile*: independent FLAC streams map onto a device mesh
 with axes
 
-  * ``tiles``  -- data parallelism over spatial tiles (the outer, DCN/ICI
-                  friendly axis; tiles never communicate during encode)
+  * ``tiles``  -- data parallelism over spatial tiles (tiles never
+                  communicate during encode)
   * ``blocks`` -- intra-tile block parallelism (frames of one tile spread
                   over devices; only the per-tile byte-size reduction
                   crosses this axis)
 
 Only the byte-offset spatial index needs communication: an all-gather of
-per-tile compressed sizes followed by an exclusive prefix sum -- a few KB
-over ICI per SURVEY.md §2.4's mapping table.
+per-tile compressed sizes followed by an exclusive prefix sum -- a few KB.
+The mesh assumes no interconnect topology: devices are taken in
+``jax.local_devices()`` order, which suits cards joined all to all.
 """
 
 from __future__ import annotations

@@ -1,13 +1,13 @@
-"""Multi-host (DCN) tile dispatch: scale tile encoding across processes.
+"""Multi-host tile dispatch: scale tile encoding across processes.
 
 The reference has no parallelism at all (SURVEY.md §2.4); its per-tile loop
 maps onto a single-host mesh in tile_engine.py.  This module adds the
-DCN level: each host encodes a disjoint, contiguous slice of the tile grid
-with its LOCAL devices (the full single-host pipeline, mesh emission
-included), and the ONLY cross-host traffic is the per-tile compressed-size
-gather that builds the global byte-range index -- a few bytes per tile over
-DCN, exactly SURVEY.md §2.4's mapping ("jax.distributed only for the global
-index gather").
+cross-host level: each host encodes a disjoint, contiguous slice of the
+tile grid with its LOCAL devices (the full single-host pipeline, mesh
+emission included), and the ONLY cross-host traffic is the per-tile
+compressed-size gather that builds the global byte-range index -- a few
+bytes per tile, exactly SURVEY.md §2.4's mapping ("jax.distributed only
+for the global index gather").
 
 Output is a sharded container: host p writes ``<prefix>.part{p}`` with its
 tiles' concatenated FLAC streams; host 0 additionally writes the standard
@@ -49,8 +49,9 @@ def init_multihost(
 ) -> tuple[int, int]:
     """Initialize jax.distributed (idempotent); returns (process_id, count).
 
-    On real TPU pods the three arguments come from the environment and may
-    all be None (jax autodetects); for CPU-based tests they are explicit.
+    Pass all three explicitly (``coordinator_address`` as host:port of
+    process 0); where a cluster launcher exports them, jax may autodetect
+    them from None.
     """
     import jax
 
@@ -114,8 +115,8 @@ def encode_tiles_multihost(
         if local.shape[0]
         else []
     )
-    # DCN traffic: ONE allgather of per-tile byte sizes (padded to the max
-    # per-host tile count so every row is rectangular)
+    # cross-host traffic: ONE allgather of per-tile byte sizes (padded to
+    # the max per-host tile count so every row is rectangular)
     base, rem = divmod(T, pcount)
     max_local = base + (1 if rem else 0)
     sizes_local = np.zeros(max_local, np.int64)

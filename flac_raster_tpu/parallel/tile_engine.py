@@ -1,6 +1,6 @@
 """Mesh-parallel tile encode: shard_map over (tiles, blocks), emitting bytes.
 
-This is the TPU-native replacement for the reference's sequential per-tile
+This is the device-parallel replacement for the reference's sequential per-tile
 loop (``spatial_encoder.py:196-245``, ``cli.py:553-622`` -- SURVEY.md §3.3):
 a whole batch of tiles is planned AND emitted in one pjit/shard_map program:
 
@@ -10,19 +10,26 @@ a whole batch of tiles is planned AND emitted in one pjit/shard_map program:
     shard scatter-packs its frames into a local word buffer (frames are
     byte-aligned, so per-tile streams are plain concatenations of shard
     buffers -- no cross-shard bit shifting);
-  * the spatial byte-range index built collectively: ``psum`` of frame
-    bytes over ``blocks``, ``all_gather`` of tile sizes over ``tiles``,
-    exclusive prefix sum for the offsets;
+  * the spatial byte-range index built collectively from the emitted frame
+    sizes: ``psum`` of frame bytes over ``blocks``, ``all_gather`` of tile
+    sizes over ``tiles``, exclusive prefix sum for the offsets;
   * only compressed words + per-frame sizes leave the device.
 
 ``make_tile_emit_step`` returns the compiled emitting step;
 ``encode_flac_batch_mesh`` is the host-facing wrapper that assembles
-complete FLAC streams byte-identical to codec/fast_encoder.encode_flac_batch
--- codec/fast_encoder routes batch encodes here whenever more than one
-device is visible.  ``make_tile_step`` (sizes/offsets only) remains for
-lightweight index planning.  The emitting step is the framework's
-``dryrun_multichip`` payload (__graft_entry__.py): the complete sharded
-compute graph of the flagship workload.
+complete FLAC streams -- codec/fast_encoder routes batch encodes here
+whenever more than one device is visible.  The emitting step is the
+framework's ``dryrun_multichip`` payload (__graft_entry__.py): the complete
+sharded compute graph of the flagship workload.
+
+Output bytes: the integer stages are exact everywhere, but the float32 LPC
+stage (autocorrelation, Levinson, coefficient quantization) may round
+differently in each compiled program.  On the CPU every program rounds
+alike, so the mesh streams are byte-identical to
+codec/fast_encoder.encode_flac_batch (tested).  On a GPU the program
+depends on the mesh shape, so the bytes depend on the device count and mesh
+layout: the decoded samples are guaranteed, the sizes agree to a fraction
+of a percent, and the index always matches the bytes this step emitted.
 """
 
 from __future__ import annotations
@@ -39,116 +46,14 @@ except ImportError:  # pragma: no cover
     from jax.experimental.shard_map import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from ..ops.device_codec import MAX_DEVICE_BPS, plan_blocks
+from ..ops.device_codec import MAX_DEVICE_BPS
 from ..ops.device_emit import plan_and_emit, worst_case_words
 from .mesh import tile_mesh
 
 __all__ = [
-    "make_tile_step",
     "make_tile_emit_step",
     "encode_flac_batch_mesh",
-    "frame_bytes_from_subframe_bits",
 ]
-
-
-def _utf8_bits_jnp(fi):
-    """Frame-number UTF-8 length in bits (matches fast_encoder._utf8_tokens).
-
-    Exact int32 comparison; supports frame indices < 2^26 (a 256 GB tile at
-    blocksize 4096) -- far beyond any real tile. Larger streams use the host
-    emitter's full-range path.
-    """
-    thresholds = jnp.asarray(
-        np.array([0x80, 0x800, 0x10000, 0x200000, 0x4000000], np.int32)
-    )
-    n_bytes = jnp.sum(fi[..., None] >= thresholds, axis=-1) + 1
-    return n_bytes.astype(jnp.int32) * 8
-
-
-def frame_bytes_from_subframe_bits(sf_bits, frame_idx, bs_tail_bits: int = 0):
-    """Exact frame byte size from per-channel subframe bits.
-
-    Args:
-        sf_bits: (..., F, C) int32 exact subframe sizes.
-        frame_idx: (..., F) int32 absolute frame numbers.
-    Returns:
-        (..., F) int32 byte size of each frame (header + body + pad + crc16).
-    """
-    hdr_bits = 32 + _utf8_bits_jnp(frame_idx) + bs_tail_bits
-    raw = hdr_bits + 8 + sf_bits.sum(axis=-1)
-    pad = (-raw) % 8
-    return (raw + pad + 16) // 8
-
-
-def make_tile_step(
-    mesh=None,
-    *,
-    blocksize: int = 4096,
-    bps: int = 16,
-    compression_level: int = 5,
-):
-    """Build the sharded tile-plan step.
-
-    Returns:
-        fn(tiles_pcm (T, F, C, N) int32) -> dict with
-          subframe_bits (T, F, C), frame_bytes (T, F),
-          tile_body_bytes (T,), offsets (T,)  [exclusive prefix over tiles]
-        T must divide the ``tiles`` mesh axis, F the ``blocks`` axis.
-    """
-    if mesh is None:
-        mesh = tile_mesh()
-    from ..codec.encoder import EncoderConfig
-
-    cfg = EncoderConfig.from_level(compression_level)
-    plan_kw = dict(
-        blocksize=blocksize,
-        bps=bps,
-        max_lpc_order=cfg.max_lpc_order,
-        apodizations=cfg.apodizations,
-        max_partition_order=min(cfg.max_partition_order, 6),
-        use_lpc=cfg.use_lpc,
-    )
-
-    def local_step(tiles):  # (tT, tF, C, N) local shard
-        tT, tF, C, N = tiles.shape
-        blocks = tiles.reshape(tT * tF * C, N)
-        plan = plan_blocks(blocks, **plan_kw)
-        sf_bits = plan["subframe_bits"].reshape(tT, tF, C)
-        # absolute frame index of local frames within their tile
-        blk_pos = jax.lax.axis_index("blocks")
-        fidx = blk_pos * tF + jax.lax.broadcasted_iota(jnp.int32, (tT, tF), 1)
-        fbytes = frame_bytes_from_subframe_bits(sf_bits, fidx)
-        tile_local = fbytes.sum(axis=1)                         # (tT,)
-        tile_body = jax.lax.psum(tile_local, "blocks")          # (tT,)
-        all_tiles = jax.lax.all_gather(tile_body, "tiles", tiled=True)  # (T,)
-        offsets_all = jnp.cumsum(all_tiles) - all_tiles         # exclusive
-        t_pos = jax.lax.axis_index("tiles")
-        offsets = jax.lax.dynamic_slice_in_dim(offsets_all, t_pos * tT, tT)
-        return sf_bits, fbytes, tile_body, offsets
-
-    sharded = shard_map(
-        local_step,
-        mesh=mesh,
-        in_specs=(P("tiles", "blocks", None, None),),
-        out_specs=(
-            P("tiles", "blocks", None),
-            P("tiles", "blocks"),
-            P("tiles"),
-            P("tiles"),
-        ),
-    )
-
-    @jax.jit
-    def step(tiles):
-        sf_bits, fbytes, tile_body, offsets = sharded(tiles)
-        return {
-            "subframe_bits": sf_bits,
-            "frame_bytes": fbytes,
-            "tile_body_bytes": tile_body,
-            "offsets": offsets,
-        }
-
-    return step
 
 
 def make_tile_emit_step(
@@ -158,6 +63,7 @@ def make_tile_emit_step(
     bps: int = 16,
     channels: int = 1,
     frames_per_tile: int,
+    real_frames: int | None = None,
     sr_code: int = 0,
     bps_code: int = 4,
     bs_code: int = 12,
@@ -172,8 +78,13 @@ def make_tile_emit_step(
     tile per tiles-shard (G = tiles axis size) and F split over the blocks
     axis.  Each shard runs ops/device_emit.plan_and_emit on its local
     frames with the correct absolute frame numbering; because frames are
-    byte-aligned, the shard word buffers concatenate into exactly the
-    stream the single-device emitter writes (byte-identical, tested).
+    byte-aligned, the shard word buffers concatenate into the tile's frame
+    bytes (byte-identical to the single-device emitter on the CPU, tested;
+    see the module docstring for other platforms).
+
+    The index outputs count the first ``real_frames`` frames of each tile
+    (default: all ``frames_per_tile``); frames past them are zero padding
+    up to a multiple of the blocks axis, which the host drops on assembly.
 
     plan_and_emit is NOT vmapped: batched float reductions re-associate
     under vmap and change LPC coefficients, which would break
@@ -183,7 +94,9 @@ def make_tile_emit_step(
         fn(tiles (G, F, C, N) int) -> dict with
           words (G, BS * W) uint32  -- shard s of tile g at [s*W:(s+1)*W]
           frame_bits (G, F) int32   -- per-frame bit sizes (byte multiples)
-          tile_body_bytes (G,) int32, offsets (G,) int32 [exclusive, in-group]
+          subframe_bits (G, F, C) int32
+          tile_body_bytes (G,) int32 -- bytes of the real frames
+          offsets (G,) int32         -- exclusive prefix sum, in-group
         W is exposed as ``step._words_per_shard``.
     """
     if mesh is None:
@@ -197,6 +110,8 @@ def make_tile_emit_step(
     if frames_per_tile % blocks_axis:
         raise ValueError("frames_per_tile must divide the blocks mesh axis")
     tF = frames_per_tile // blocks_axis
+    if real_frames is None:
+        real_frames = frames_per_tile
     n_words = worst_case_words(tF, channels, blocksize, bps + (1 if use_ms else 0))
     emit_kw = dict(
         blocksize=blocksize,
@@ -221,7 +136,9 @@ def make_tile_emit_step(
         words = out["words"][None]                              # (1, W)
         frame_bits = out["frame_bits"][None]                    # (1, tF)
         sub_bits = out["subframe_bits"][None]                   # (1, tF, C)
-        tile_local = (frame_bits >> 3).sum(axis=1)              # (1,)
+        fidx = frame0 + jax.lax.broadcasted_iota(jnp.int32, frame_bits.shape, 1)
+        real_bytes = jnp.where(fidx < real_frames, frame_bits >> 3, 0)
+        tile_local = real_bytes.sum(axis=1)                     # (1,)
         tile_body = jax.lax.psum(tile_local, "blocks")          # (1,)
         all_tiles = jax.lax.all_gather(tile_body, "tiles", tiled=True)
         offsets_all = jnp.cumsum(all_tiles) - all_tiles
@@ -272,8 +189,8 @@ def encode_flac_batch_mesh(
 ) -> list[bytes]:
     """Mesh-sharded batch encode producing complete FLAC streams.
 
-    Byte-identical to codec/fast_encoder.encode_flac_batch (tested): the
-    full-frame bodies are planned, emitted, and scatter-packed by the
+    Byte-identical to codec/fast_encoder.encode_flac_batch on the CPU
+    (tested; on a GPU see the module docstring): the full-frame bodies are planned, emitted, and scatter-packed by the
     (tiles x blocks) shard_map step, one group of ``tiles_axis`` tiles per
     call; the host only byteswaps the compressed shard buffers, patches
     CRCs, and prepends headers / appends tail frames.  This replaces the
@@ -349,6 +266,7 @@ def encode_flac_batch_mesh(
         bps=bits_per_sample,
         channels=channels,
         frames_per_tile=Fp,
+        real_frames=n_full,
         sr_code=sr_code,
         bps_code=bps_code,
         bs_code=bs_code,

@@ -1,15 +1,3 @@
-from .profiling import (
-    StageTimer,
-    device_trace,
-    restore_cpu_affinity,
-    tame_device_client_threads,
-    timed_stage,
-)
+from .profiling import StageTimer, device_trace, timed_stage
 
-__all__ = [
-    "StageTimer",
-    "device_trace",
-    "restore_cpu_affinity",
-    "tame_device_client_threads",
-    "timed_stage",
-]
+__all__ = ["StageTimer", "device_trace", "timed_stage"]

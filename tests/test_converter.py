@@ -134,9 +134,9 @@ def test_compare_tiffs(tmp_path, rng):
 
 @pytest.mark.parametrize("dtype", ALL_DTYPES)
 def test_decode_bytes_device_lossless_exact(rng, dtype):
-    """End-to-end TPU ingest: device decode + device denormalization must be
+    """End-to-end device ingest: device decode + device denormalization must be
     bit-exact vs the host path for every lossless mode.  float64 outputs
-    fall back to the exact host array (no f64 on TPU)."""
+    fall back to the exact host array (no f64 on device with x64 off)."""
     import jax
 
     conv = RasterFLACConverter(lossless=True)
@@ -179,7 +179,7 @@ def test_decode_bytes_device_minmax(rng):
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int16])
 def test_encode_array_device_identical_bytes(rng, dtype):
-    """TPU egress: encoding a device-resident raster must produce the same
+    """Device egress: encoding a device-resident raster must produce the same
     bytes as encode_array on the host copy (MD5 off on both), and the full
     device round trip (encode_array_device -> decode_bytes_device) must be
     bit-exact."""

@@ -283,125 +283,6 @@ class TestNativeRuntime:
             assert buf[s + l] == c >> 8 and buf[s + l + 1] == (c & 0xFF)
 
 
-class TestPallasKernels:
-    @pytest.mark.parametrize("parts", [8, 32, 64])
-    def test_rice_cost_kernel_parity(self, rng, parts):
-        """Pallas kernel (interpret mode) == numpy reference.
-
-        The kernel reconstructs sums from the 5-bit-quotient recurrence:
-        exact sum(z >> k) for k >= k0 = max(0, bitlen(zmax) - 5), zero
-        below.  Entries below k0 are provably invalid under the 32-bit
-        token cap, so the planner's vmask never reads them; assert both
-        the kernel's own contract and post-mask equality with the clamped
-        jnp-fallback oracle (the byte-identity condition).  parts spans
-        both kernel branches (r4 advisor): 64 -> base 64 (packed fields),
-        32 -> base 128 (the packed field-width boundary), 8 -> base 512
-        (the unpacked path, reached at encoder levels 0-1)."""
-        from flac_raster_tpu.ops.pallas_kernels import (
-            KMAX_KERNEL, TOKEN_CAP, rice_cost_sums,
-        )
-
-        z = rng.integers(0, 1 << 20, (16, N)).astype(np.uint32)
-        # include all-zero and near-cap-wide partitions
-        z[0] = 0
-        z[1, :64] = np.uint32(0xFFFFFFFF)
-        sums, zmax = rice_cost_sums(jnp.asarray(z), parts=parts, interpret=True)
-        sums, zmax = np.asarray(sums), np.asarray(zmax)
-        zp = z.reshape(16, parts, N // parts)
-        assert np.array_equal(zmax, zp.max(-1))
-        k0 = sum(
-            (zmax >= np.uint64(1 << j)).astype(np.int32) for j in range(5, 32)
-        )
-        for k in range(KMAX_KERNEL + 1):
-            exact = (zp >> np.uint32(k)).astype(np.int64).sum(-1)
-            ref = np.where(k >= k0, exact, 0)
-            assert np.array_equal(sums[:, k, :], ref), k
-            # post-mask equality with the clamped fallback sums
-            valid = (zmax >> np.uint32(k)).astype(np.int64) + 1 + k <= TOKEN_CAP
-            clamped = np.minimum(zp >> np.uint32(k), 1 << 17).astype(np.int64).sum(-1)
-            assert np.array_equal(sums[:, k, :][valid], clamped[valid]), k
-
-    @pytest.mark.parametrize("parts", [8, 32, 64])
-    def test_rice_cost_kernel_hp_parity(self, rng, parts):
-        """Transposed half-partition kernel: post-mask equality with the
-        clamped jnp oracle (byte-identity condition).  Unlike the v1
-        contract, entries below the FULL partition's k0 may be partial
-        half-sums rather than zero -- the planner's validity mask discards
-        exactly those, so only masked equality is asserted."""
-        from flac_raster_tpu.ops.pallas_kernels import (
-            KMAX_KERNEL, TOKEN_CAP, rice_cost_sums_hp,
-        )
-
-        z = rng.integers(0, 1 << 20, (16, N)).astype(np.uint32)
-        z[0] = 0
-        z[1, :64] = np.uint32(0xFFFFFFFF)
-        sums, zmax = rice_cost_sums_hp(jnp.asarray(z), parts=parts, interpret=True)
-        sums, zmax = np.asarray(sums), np.asarray(zmax)
-        zp = z.reshape(16, parts, N // parts)
-        assert np.array_equal(zmax, zp.max(-1))
-        for k in range(KMAX_KERNEL + 1):
-            valid = (zmax >> np.uint32(k)).astype(np.int64) + 1 + k <= TOKEN_CAP
-            clamped = np.minimum(zp >> np.uint32(k), 1 << 17).astype(np.int64).sum(-1)
-            assert np.array_equal(sums[:, k, :][valid], clamped[valid]), k
-
-    def test_planner_identical_with_hp_cost_path(self, rng, monkeypatch):
-        """plan_blocks bytes are independent of the cost-kernel layout."""
-        from flac_raster_tpu.ops import device_codec as dc
-
-        x = np.cumsum(rng.integers(-60, 60, (4, N)), axis=-1).astype(np.int32)
-        monkeypatch.setattr(dc, "FORCE_PALLAS_INTERPRET", True)
-        monkeypatch.setenv("FRTPU_COST", "v1")
-        dc.plan_blocks.clear_cache()
-        ref = {k: np.asarray(v) for k, v in dc.plan_blocks(
-            jnp.asarray(x), blocksize=N, bps=16).items()}
-        monkeypatch.setenv("FRTPU_COST", "hp")
-        dc.plan_blocks.clear_cache()
-        try:
-            out = {k: np.asarray(v) for k, v in dc.plan_blocks(
-                jnp.asarray(x), blocksize=N, bps=16).items()}
-        finally:
-            dc.plan_blocks.clear_cache()
-        for k in ref:
-            assert np.array_equal(ref[k], out[k]), k
-
-    def test_gather_windows_dma_values(self, rng):
-        """DMA window gather (interpret mode) == host strided slices."""
-        from flac_raster_tpu.ops.pallas_gather import (
-            ALIGN_ROWS, ROW_WORDS, gather_windows_dma,
-        )
-
-        R, B, OUT = 256, 7, 16
-        body = rng.integers(0, 1 << 32, (R, ROW_WORDS), dtype=np.uint64)
-        body = body.astype(np.uint32)
-        row0 = (
-            rng.integers(0, (R - OUT) // ALIGN_ROWS, B) * ALIGN_ROWS
-        ).astype(np.int32)
-        row0[0] = 0                      # include the first window
-        row0[-1] = R - OUT               # and the last in-bounds one
-        win = np.asarray(
-            gather_windows_dma(
-                jnp.asarray(body), jnp.asarray(row0), out_rows=OUT,
-                interpret=True,
-            )
-        )
-        exp = np.stack([body[r : r + OUT].ravel() for r in row0])
-        assert np.array_equal(win, exp)
-
-    def test_planner_identical_with_pallas_path(self, mixed_blocks):
-        from flac_raster_tpu.ops import device_codec as dc
-
-        p_ref = _plan(mixed_blocks)
-        dc.FORCE_PALLAS_INTERPRET = True
-        dc.plan_blocks.clear_cache()
-        try:
-            p_pal = _plan(mixed_blocks)
-        finally:
-            dc.FORCE_PALLAS_INTERPRET = False
-            dc.plan_blocks.clear_cache()
-        for key in p_ref:
-            assert np.array_equal(p_ref[key], p_pal[key]), key
-
-
 class TestHostPlannerWideBps:
     """ops/host_planner: the bps>26 (float32/float64/minmax-32bps) fast path."""
 

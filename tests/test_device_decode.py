@@ -92,54 +92,6 @@ def test_device_decode_subframe_kinds(rng):
     _check(blob, x)
 
 
-@pytest.mark.parametrize("channels,bps", [(1, 8), (2, 16), (3, 12), (2, 24)])
-def test_device_decode_row_gather_mode(rng, monkeypatch, channels, bps):
-    """The row-sliced rice-scan gather (the TPU default) must match the
-    element-gather mode byte for byte on every stream class.  On the CPU
-    mesh the auto mode picks element gathers, so force row mode through
-    the env knob."""
-    monkeypatch.setenv("FRTPU_DECODE_ROW", "1")
-    lim = 1 << (bps - 1)
-    parts = [
-        np.full(N, -7),                                       # constant
-        rng.integers(-lim, lim, N),                           # verbatim-ish
-        np.clip(np.cumsum(rng.integers(-3, 4, N)), -lim, lim - 1),
-        (lim // 30 * np.sin(np.arange(N) / 5.0)).astype(int), # tonal -> lpc
-    ]
-    x = np.concatenate(parts).astype(np.int32)
-    x = np.stack([np.roll(x, 3 * c) for c in range(channels)], axis=1)
-    blob = encode_flac_fast(x, 44100, bps, 5, blocksize=N)
-    _check(blob, x)
-
-
-@pytest.mark.parametrize("channels,bps", [(1, 16), (2, 16), (2, 24)])
-def test_device_decode_dma_gather_mode(rng, monkeypatch, channels, bps):
-    """The Pallas DMA window gather (the TPU default window source) must
-    decode byte-exactly: windows start 8-row (4096 B) aligned with the
-    frame's sub-window offset carried in bit_base, so this exercises the
-    large-bit_base corner the XLA path (128 B alignment) never reaches.
-    Interpreter mode runs the kernel's copy semantics on the CPU mesh."""
-    monkeypatch.setenv("FRTPU_DECODE_DMA", "interpret")
-    lim = 1 << (bps - 1)
-    parts = [
-        np.full(N, 9),
-        rng.integers(-lim, lim, N),
-        np.clip(np.cumsum(rng.integers(-3, 4, N)), -lim, lim - 1),
-        (lim // 30 * np.sin(np.arange(N) / 5.0)).astype(int),
-    ]
-    x = np.concatenate(parts).astype(np.int32)
-    x = np.stack([np.roll(x, 3 * c) for c in range(channels)], axis=1)
-    blob = encode_flac_fast(x, 44100, bps, 5, blocksize=N)
-    # odd chunking makes consecutive chunks share 4096 B body stripes
-    dev = decode_flac_device(blob, verify_crc=True, chunk_frames=3)
-    assert np.array_equal(np.asarray(dev.samples).astype(np.int64),
-                          x.astype(np.int64))
-    # ranged decode re-bases byte_lo to a 4096 B boundary
-    dev_r = decode_flac_device(blob, sample_range=(N * 2 + 5, N + 7))
-    assert np.array_equal(np.asarray(dev_r.samples).astype(np.int64),
-                          x[N * 2 + 5 : N * 3 + 12].astype(np.int64))
-
-
 def test_device_decode_scalar_encoder_stream(rng):
     x = np.cumsum(rng.integers(-9, 10, (N * 2 + 13, 2)), axis=0).astype(np.int32)
     blob = encode_flac(x, 44100, 16, 5, blocksize=N)

@@ -1,7 +1,7 @@
 """Mesh tile engine (parallel/) and batched tile encoding.
 
 Multi-chip paths run on the 8-device virtual CPU mesh (conftest), per
-SURVEY.md §4's strategy for testing TPU-mesh code without TPUs.
+SURVEY.md §4's strategy for testing mesh code without accelerators.
 """
 
 import numpy as np
@@ -14,7 +14,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from flac_raster_tpu.codec.decoder import decode_flac
 from flac_raster_tpu.codec.fast_encoder import encode_flac_batch
 from flac_raster_tpu.models.flac_format import parse_flac_metadata
-from flac_raster_tpu.parallel import make_tile_step, tile_mesh
+from flac_raster_tpu.parallel import make_tile_emit_step, tile_mesh
 
 N = 256  # small blocksize keeps CPU-mesh compiles quick
 
@@ -26,28 +26,64 @@ def tile_pcm():
     return np.cumsum(rng.integers(-8, 9, (T, F, C, N)), axis=-1).astype(np.int32)
 
 
+def _index_groups(mesh, pcm, real_frames=None):
+    """Run the emitting step over ``pcm`` (T, F, C, N) one group of
+    tiles-axis tiles at a time; (tile_body_bytes, offsets) per group."""
+    G = mesh.shape["tiles"]
+    T, F, C, _ = pcm.shape
+    step = make_tile_emit_step(
+        mesh, blocksize=N, bps=16, channels=C, frames_per_tile=F,
+        real_frames=real_frames, bs_code=8,  # blocksize 256
+    )
+    sharding = NamedSharding(mesh, P("tiles", "blocks", None, None))
+    out = []
+    for g0 in range(0, T, G):
+        res = step(jax.device_put(jnp.asarray(pcm[g0 : g0 + G]), sharding))
+        out.append((np.asarray(res["tile_body_bytes"]), np.asarray(res["offsets"])))
+    return out
+
+
+def _body_bytes(blob):
+    return len(blob) - parse_flac_metadata(blob)[2]
+
+
 class TestTileStep:
     @pytest.mark.parametrize("blocks_axis", [1, 2])
     def test_sharded_sizes_match_emitter(self, tile_pcm, blocks_axis):
+        """The collective index (psum over blocks, all_gather + exclusive
+        prefix sum over tiles) equals the bytes the encoder writes."""
         mesh = tile_mesh(8, blocks_axis=blocks_axis)
-        step = make_tile_step(mesh, blocksize=N, bps=16, compression_level=5)
-        tiles_dev = jax.device_put(
-            jnp.asarray(tile_pcm),
-            NamedSharding(mesh, P("tiles", "blocks", None, None)),
-        )
-        out = step(tiles_dev)
-        sizes = np.asarray(out["tile_body_bytes"])
-        offsets = np.asarray(out["offsets"])
-        assert np.array_equal(offsets, np.cumsum(sizes) - sizes)
-
         T, F, C, _ = tile_pcm.shape
         streams = encode_flac_batch(
             tile_pcm.transpose(0, 1, 3, 2).reshape(T, F * N, C),
             44100, 16, compression_level=5, blocksize=N, compute_md5=False,
         )
-        for t, blob in enumerate(streams):
-            _, _, header_len = parse_flac_metadata(blob)
-            assert len(blob) - header_len == sizes[t]
+        G = mesh.shape["tiles"]
+        for g, (sizes, offsets) in enumerate(_index_groups(mesh, tile_pcm)):
+            body = [_body_bytes(b) for b in streams[g * G : (g + 1) * G]]
+            assert np.array_equal(sizes, body)
+            assert np.array_equal(offsets, np.cumsum(sizes) - sizes)
+
+    @pytest.mark.parametrize("blocks_axis", [2, 4])
+    def test_index_counts_real_frames_only(self, tile_pcm, blocks_axis):
+        """Frames padded up to the blocks axis stay out of the index: with
+        3 real frames of 4 the sizes are those of the 3-frame streams."""
+        mesh = tile_mesh(8, blocks_axis=blocks_axis)
+        G = mesh.shape["tiles"]
+        pcm = tile_pcm[:G].copy()
+        pcm[:, 3] = 0
+        streams = encode_flac_batch(
+            pcm[:, :3].transpose(0, 1, 3, 2).reshape(G, 3 * N, 1),
+            44100, 16, compression_level=5, blocksize=N, compute_md5=False,
+        )
+        [(sizes, offsets)] = _index_groups(mesh, pcm, real_frames=3)
+        body = [_body_bytes(b) for b in streams]
+        assert np.array_equal(sizes, body)
+        assert np.array_equal(offsets, np.cumsum(body) - body)
+
+    def test_emit_step_rejects_indivisible_frames(self):
+        with pytest.raises(ValueError, match="blocks mesh axis"):
+            make_tile_emit_step(tile_mesh(8, blocks_axis=2), frames_per_tile=3)
 
     def test_mesh_validation(self):
         with pytest.raises(ValueError):
